@@ -1,4 +1,4 @@
-"""circulantpreconditioner_tpu — TPU-native FFT/circulant-preconditioned FV solver framework.
+"""circulantpreconditioner_tpu — FFT/circulant-preconditioned FV solver framework (JAX, NVIDIA GPUs).
 
 A brand-new JAX/XLA/Pallas implementation of the capabilities of
 ndjinga/CirculantPreconditioner (reference mounted at /root/reference):

@@ -52,7 +52,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="write a MED time series (Field::writeMED analog)")
     p.add_argument("--checkpoint-freq", type=int, default=0,
                    help="save (state,t,it) every N steps (0 = off)")
-    p.add_argument("--f64", action="store_true", help="float64 (CPU only)")
+    p.add_argument("--f64", action="store_true", help="float64 state and solves")
     p.add_argument("--devices", type=int, default=None,
                    help="device count for --shard modes (default: all visible)")
     p.add_argument("--pq", type=int, nargs=2, default=None,

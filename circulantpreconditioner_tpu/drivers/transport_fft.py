@@ -42,7 +42,6 @@ def main(argv=None):
             device_mesh,
             device_mesh_2d,
         )
-        from circulantpreconditioner_tpu.utils import tile_scalar
 
         op = model.fft_operator
         if dim != 3:
@@ -56,7 +55,7 @@ def main(argv=None):
             dm = device_mesh_2d(pq)
             solver = PencilCirculantSolver.from_operator(op, dm)
         print(f"-- sharded over {dm.shape} devices ({args.shard})")
-        dnorm = jax.jit(lambda a, b: tile_scalar(jnp.linalg.norm(a - b)))
+        dnorm = jax.jit(lambda a, b: jnp.linalg.norm(a - b))
 
         def step(u):
             u1 = solver.solve(u)

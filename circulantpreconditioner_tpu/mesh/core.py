@@ -1,6 +1,6 @@
 """Host-side mesh core: flat face/cell arrays for vectorized FV assembly.
 
-TPU-native replacement for the SOLVERLAB/CDMATH Mesh/Cell/Face object API the
+Replacement for the SOLVERLAB/CDMATH Mesh/Cell/Face object API the
 reference walks cell-by-cell (src/WaveSystem.cxx:109-176). Instead of an
 object graph, a mesh here is a set of flat NumPy arrays in face-major form —
 exactly what vectorized scatter-add assembly and device kernels need:

@@ -7,8 +7,8 @@ ladder /root/reference/meshes/README.md:12-40). Several of those families are
 TOPOLOGICAL grids even though their geometry is warped: the uniform hexahedra
 (mesh_hexa_1..5) and the Kershaw polyhedra (Kershaw1..4) are (n,n,n) grids of
 6-faced cells. Generated meshes in this framework carry `topology_shape` and
-take the gather-free VaryingStencilOperator SpMV (~200 Gnnz/s class on TPU);
-loaded meshes used to fall to the assembled ELL-gather path (~0.13 Gnnz/s).
+take the gather-free VaryingStencilOperator SpMV; loaded meshes used to
+fall to the assembled ELL-gather path.
 
 This module closes that gap with a host-side pass that
 1. detects the 2·dim boundary planes geometrically (all FVCA6 fixtures have

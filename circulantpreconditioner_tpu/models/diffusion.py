@@ -10,8 +10,8 @@ verification (ToDo.md:8). This model provides:
 - implicit stepper via CG (L is SPD — CG is the right Krylov method here,
   unlike the transport/wave GMRES) or GMRES;
 - FFT direct stepper: the StructuredDiffusionContext analog — diffusive
-  circulant symbol 1 + Σ_d 2λ_d(1 − cos θ_d), λ_d = ν·dt/h_d², solved on
-  the MXU via the m=1 block-circulant DFT-matmul path;
+  circulant symbol 1 + Σ_d 2λ_d(1 − cos θ_d), λ_d = ν·dt/h_d², solved by
+  the m=1 block-circulant solver (transform by ops.circulant.transform_method);
 - exact solutions (`exact_mode_decay`): periodic Fourier modes decay by
   1/(1 + dt·ν·λ_h(k)) per implicit step with λ_h the DISCRETE symbol —
   machine-precision oracles used in tests/test_diffusion.py.
@@ -116,8 +116,13 @@ class DiffusionEquation:
 
     @cached_property
     def fft_solver(self):
-        """StructuredDiffusionContext analog: MXU direct solve of I + D on a
-        periodic uniform grid, symbol cached on device."""
+        """StructuredDiffusionContext analog: direct solve of I + D on a
+        periodic uniform grid by ops.circulant.transform_method(), symbol
+        cached on device."""
+        from circulantpreconditioner_tpu.ops.circulant import (
+            BlockCirculantOperator,
+            transform_method,
+        )
         from circulantpreconditioner_tpu.ops.dft_matmul import MatmulBlockCirculantSolver
 
         if not self.mesh.is_structured:
@@ -127,8 +132,9 @@ class DiffusionEquation:
             self.dim, self.dt, self.nu, self.mesh.spacing)  # type: ignore[attr-defined]
         blocks = blocks.copy()
         blocks[0] += 1.0  # identity shift: symbol of I + D
-        return MatmulBlockCirculantSolver.from_stencil(
-            shape_zyx, offsets, blocks, dtype=self.dtype)
+        cls = (MatmulBlockCirculantSolver if transform_method() == "matmul"
+               else BlockCirculantOperator)
+        return cls.from_stencil(shape_zyx, offsets, blocks, dtype=self.dtype)
 
     def fft_stepper(self):
         solver = self.fft_solver

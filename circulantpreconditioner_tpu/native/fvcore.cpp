@@ -1,7 +1,7 @@
 // Native runtime core: the host-side preprocessing hot paths.
 //
 // The reference's native layer is PETSc/C++ doing assembly and ILU setup;
-// the TPU compute path here is JAX/XLA, but the O(n) host preprocessing
+// the device compute path here is JAX/XLA, but the O(n) host preprocessing
 // (mesh face extraction, ILU(0) numeric factorization, triangular level
 // scheduling) is genuinely hot for million-cell meshes and is implemented
 // natively with a plain C ABI (loaded via ctypes — no pybind11 dependency).

@@ -1,22 +1,19 @@
-"""CSR / BSR sparse operators as JAX pytrees, with TPU-friendly SpMV.
+"""CSR / BSR sparse operators as JAX pytrees.
 
 Replaces the reference's PETSc `Mat` usage (MatCreateAIJ + MatSetValues
 assembly + MatMult, e.g. /root/reference/tests/WaveSystem_SphericalExplosion_
 expl_seq.cxx:38,83-90 and src/WaveSystem.cxx:78-90).
 
-TPU design notes:
+Design notes:
 - Assembly happens on host (NumPy) once — it is O(nnz) preprocessing — and
   produces static-shape device arrays. Duplicate COO entries are summed
   (ADD_VALUES semantics).
-- The default SpMV is gather + segment_sum over a fixed-nnz layout; XLA maps
-  this to efficient fused gathers on TPU. A padded ELL ("sliced-ELL") layout
-  is also provided: for FV meshes the row degree is tightly bounded
-  (faces-per-cell), so ELL padding is small and the SpMV becomes fully dense
-  vector math — `y[r] = Σ_k vals[r,k] * x[cols[r,k]]` — which vectorizes on
-  the VPU with zero irregularity. See also ops/spmv_pallas.py for the Pallas
-  kernel version.
+- The default SpMV is gather + segment_sum over a fixed-nnz layout. A padded
+  ELL ("sliced-ELL") layout is also provided: for FV meshes the row degree
+  is tightly bounded (faces-per-cell), so ELL padding is small and the SpMV
+  becomes dense vector math — `y[r] = Σ_k vals[r,k] * x[cols[r,k]]`.
 - BSR (block CSR, block = dim+1 for the wave system) stores dense blocks and
-  contracts them with einsum so the MXU sees batched small matmuls.
+  contracts them with einsum as batched small matmuls.
 """
 
 from __future__ import annotations
@@ -158,7 +155,7 @@ class CSRMatrix:
 @dataclass
 class ELLMatrix:
     """Padded ELLPACK layout: regular (n_rows, max_deg) gather — the
-    TPU-friendliest SpMV for bounded-degree FV operators."""
+    regular-shape SpMV for bounded-degree FV operators."""
 
     cols: jax.Array  # (n_rows, k) int32, padded with 0
     vals: jax.Array  # (n_rows, k), padded with 0.0

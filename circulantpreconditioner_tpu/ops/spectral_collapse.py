@@ -12,16 +12,13 @@ transport drivers fix the velocity a = (1,0,0)
 (/root/reference/tests/TransportEquation_SphericalExplosion_impl_mpi.cxx:258-259,
 TransportEquationFFT_...cxx: a along x), yet the reference still runs a full
 3D FFTW transform per solve (/root/reference/src/FftLinearSolver_3D.c:166-190).
-Exploiting the cancellation is the TPU-first reformulation:
+Exploiting the cancellation:
 
 - exactly ONE nonzero λ (the reference default): the whole
   FFT → divide → IFFT pipeline collapses to a SINGLE precomputed real n×n
-  matrix  M = Re(F⁻¹·diag(1/Λ₁d)·F)  applied along that axis — one MXU
-  matmul per solve, batched over every other grid point. Measured on TPU
-  v5e at 100³: 26.5 µs/solve (37.7k solves/s) at bf16x3 with relative
-  residual 3.5e-5 against the full 3D operator matvec — 3.7× the staged
-  full-3D DFT pipeline, which is HBM-roofline-bound (see PROFILE.md).
-- SOME zero λs (≥2 nonzero): the staged MXU path skips the zero axes
+  matrix  M = Re(F⁻¹·diag(1/Λ₁d)·F)  applied along that axis — one matmul
+  per solve, batched over every other grid point, reading the field once.
+- SOME zero λs (≥2 nonzero): the staged DFT-matmul path skips the zero axes
   (MatmulCirculantSolver(elide_zero_axes=True)).
 - all λ = 0: C = I; the solve is the identity.
 
@@ -121,13 +118,12 @@ class DenseCirculantSolver:
 
 def make_circulant_solver(shape_zyx: Sequence[int], lambdas_zyx: Sequence[float],
                           dtype=jnp.float32, precision: str = "highest",
-                          elide_zero_axes: bool = True, fused: bool = False):
+                          elide_zero_axes: bool = True):
     """Pick the fastest exact formulation for C⁻¹ on this λ pattern.
 
     elide_zero_axes=False forces the full multi-axis DFT pipeline (useful
     for apples-to-apples benchmarking against the reference's always-3D
-    FFTW path). fused=True prefers the VMEM-fused Pallas kernel for the
-    all-axes case (see ops/fused_circulant.py for when that wins)."""
+    FFTW path)."""
     lambdas = tuple(float(l) for l in lambdas_zyx)
     shape = tuple(int(v) for v in shape_zyx)
     nonzero = [i for i, l in enumerate(lambdas) if l != 0.0]
@@ -135,10 +131,6 @@ def make_circulant_solver(shape_zyx: Sequence[int], lambdas_zyx: Sequence[float]
         return IdentitySolver(shape)
     if elide_zero_axes and len(nonzero) == 1:
         return DenseCirculantSolver.create(shape, lambdas, dtype, precision)
-    if fused and len(shape) == 3:
-        from circulantpreconditioner_tpu.ops.fused_circulant import FusedCirculantSolver
-
-        return FusedCirculantSolver.create(shape, lambdas, dtype, precision)
     # λx = 0 with several other axes nonzero still runs the x transform
     # (the rfft axis carries the real↔complex boundary); only z/y elide.
     return MatmulCirculantSolver.create(

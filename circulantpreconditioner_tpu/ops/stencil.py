@@ -1,6 +1,6 @@
 """Structured-grid stencil operators — gather-free SpMV for cartesian meshes.
 
-On TPU, the assembled-matrix SpMV (gather + segment-sum / ELL) pays for
+The assembled-matrix SpMV (gather + segment-sum / ELL) pays for
 irregular addressing the FV operator doesn't actually have on a structured
 grid: the wave/transport divergence is a 7-point (block) stencil with ONE
 coefficient (block) per face direction. This module evaluates D·U as
@@ -9,7 +9,7 @@ coefficient (block) per face direction. This module evaluates D·U as
 
 with `jnp.roll` shifts, boundary-layer masks for Wall/Neumann (mirror ghost
 U_nb = (I − 2vvᵀ)U for walls, WaveSystem.cxx:150-157), and per-side (b×b)
-blocks contracted on the MXU. Pure shifts + batched matmuls: compiles in
+blocks contracted as batched matmuls. Pure shifts + batched matmuls: compiles in
 seconds and streams at HBM bandwidth — the structured-mesh fast path the
 reference's generic PETSc SpMV can't express.
 
@@ -209,8 +209,8 @@ class VaryingStencilOperator:
         y[c] = Σ_off  C_off[c] @ x[c + off],   off ∈ {0, ±ex, ±ey, ±ez}
 
     and applied with jnp.roll shifts + batched (m×m) einsum contractions —
-    no gathers, streams at HBM bandwidth with MXU block contractions. This
-    is the TPU answer to the reference's generic PETSc MatMult on its
+    no gathers, streams at HBM bandwidth with batched block contractions.
+    This replaces the reference's generic PETSc MatMult on its
     Kershaw benchmark meshes (meshes/README.md:30-40): the topology is a
     grid even when the geometry is not.
 
@@ -291,8 +291,7 @@ class VaryingStencilOperator:
         M = g * m
         # flat (preferred, below) or grid_last for wrap-coupled meshes; the
         # legacy trailing-(M,M) "block" layout is no longer produced — large
-        # blocks are handled by the einsum path in _apply_gt (4.9x faster
-        # than the batched trailing form at tet16 on v5e)
+        # blocks are handled by the einsum path in _apply_gt
         layout = "grid_last"
         key = (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
         offsets, coefs_np = [], []
@@ -359,8 +358,7 @@ class VaryingStencilOperator:
                                cells_per_site=cells_per_site)
 
     # unroll the m² multiply-adds only for small blocks; large supercell
-    # blocks (tet: M=24 → 576 terms) stay ONE einsum — measured 487 → 100 µs
-    # at tet16 on v5e vs the batched trailing-(M,M) form
+    # blocks (tet: M=24 → 576 terms) stay ONE einsum
     _UNROLL_MAX = 8
 
     def _apply_gt(self, gt):
@@ -378,8 +376,8 @@ class VaryingStencilOperator:
                     if o:
                         nbr = jnp.roll(nbr, -o, axis=ax + 1)
             if m > self._UNROLL_MAX:
-                # true-f32 operator apply: the TPU default one-bf16-pass dot
-                # measurably degrades Krylov convergence (round 5)
+                # true-f32 operator apply: a reduced-precision default
+                # matmul tier (TF32 on an H100) degrades Krylov convergence
                 upd = jnp.einsum("ij...,j...->i...", C, nbr, precision=jax.lax.Precision.HIGHEST)
                 for i in range(m):
                     ys[i] = ys[i] + upd[i]
@@ -415,7 +413,7 @@ class VaryingStencilOperator:
     def matvec_fm(self, g: jax.Array) -> jax.Array:
         """FIELD-MAJOR apply: g (m, N) [flat] or (m, *grid) [grid_last] →
         same shape. Identical arithmetic to `matvec` minus the
-        (N,m)↔(m,N) relayouts, which dominate the cell-major apply on TPU
+        (N,m)↔(m,N) relayouts, which can dominate the cell-major apply
         (the transposes cost more than the whole stencil body — keep the
         state field-major across a time loop and pay them once per I/O,
         not per matvec)."""
@@ -686,8 +684,7 @@ class WaveNormalStencilOperator:
     def matvec_fm(self, g: jax.Array) -> jax.Array:
         """FIELD-MAJOR apply: g (m, N) [flat] / (m, *grid) [grid_last] →
         same shape. Same arithmetic as `matvec` without the (N,m)↔(m,N)
-        relayouts — measured 940 → 203 µs per apply at Kershaw 64³ on one
-        v5e (4.6×): the transposes cost more than the whole stencil body, so
+        relayouts, which can cost more than the stencil body itself, so
         production loops should keep the state field-major and convert only
         at I/O boundaries."""
         return jnp.stack(self._apply_gt(g))

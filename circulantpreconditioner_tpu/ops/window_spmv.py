@@ -1,8 +1,7 @@
-"""Clustered-window dense SpMV — the TPU answer to UNSTRUCTURED meshes.
+"""Clustered-window dense SpMV for UNSTRUCTURED meshes.
 
-The reference's PETSc MatMult consumes CSR directly; on TPU a per-element
-gather runs at ~0.13 Gnnz/s (measured, PROFILE.md) because XLA lowers it to
-scalar-core loads. The FVCA6 tetra fixtures (half the reference's benchmark
+The reference's PETSc MatMult consumes CSR directly; here a per-element
+gather SpMV pays one gather descriptor per nonzero. The FVCA6 tetra fixtures (half the reference's benchmark
 ladder, /root/reference/meshes/README.md:22-33) have no grid topology, so the
 gather-free stencil paths don't apply. This module re-expresses the assembled
 operator so the hardware sees only two fast primitives:
@@ -20,13 +19,12 @@ operator so the hardware sees only two fast primitives:
    rows — ~50-100× fewer gather descriptors than element gathers), then
    one batched GEMV
        y[c] = W[c] @ window[c]
-   that the MXU/VPU streams at HBM bandwidth.
+   that streams at HBM bandwidth.
 
-`unit` trades gather descriptors against window padding: measured on the
-v5e at KershawTetra2 scale, unit=1 (4-wide rows) 1.7 ms, unit=2 (8-wide
-rows, 17% more W traffic) 1.06 ms ⇒ ~7 Gnnz/s vs 0.13 for element-gather
-ELL (~55×). The dense-window "waste" (~15× the true nnz) buys the win
-because every byte streams.
+`unit` trades gather descriptors against window padding (unit=2: 8-wide
+rows, 17% more W traffic than unit=1 at KershawTetra2 scale). The
+dense-window "waste" (~15× the true nnz) is paid in streamed bytes instead
+of gather descriptors.
 
 Reference parity: this is MatMult of the implicit/explicit drivers on the
 tetra fixture families (tests/WaveSystem_SphericalExplosion_impl_seq.cxx:108
@@ -167,10 +165,9 @@ class WindowedBlockOperator:
     def matvec(self, x: jax.Array) -> jax.Array:
         n = self.n_brows * self.b
         win = self._gather_windows(x)
-        # HIGHEST: the operator apply must be true-f32 — the TPU default
-        # (one bf16 pass per dot) costs GMRES ~2x the iterations
-        # (kershaw16 dct2lm: 54 its vs 27 on CPU, round 5); the SpMV is
-        # W-streaming-bound so the extra MXU passes are free
+        # HIGHEST: the operator apply must be true-f32 — a reduced-precision
+        # matmul tier costs GMRES about twice the iterations; the SpMV is
+        # W-streaming-bound so full precision is free
         y = jnp.einsum("cij,cj->ci", self.W, win, precision=jax.lax.Precision.HIGHEST)
         # output rows are padded to whole clusters; trailing pad rows of W
         # are zero so the slice just drops them
@@ -179,7 +176,7 @@ class WindowedBlockOperator:
     @jax.jit
     def matvec_multi(self, x: jax.Array) -> jax.Array:
         """y = A X for a MULTIVECTOR x (n_src·b, m) → (n_rows·b, m): one
-        batched MXU matmul per cluster, gather rows m× wider than matvec's.
+        batched matmul per cluster, gather rows m× wider than matvec's.
         The block projections of the two-level PCs (nb residual components
         through a scalar P) are the main client — replacing their
         CSRMatrix.matvec element-gather path, which the round-4 profile

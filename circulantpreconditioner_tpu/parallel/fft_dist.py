@@ -1,6 +1,6 @@
 """Slab-decomposed distributed 3D circulant solve over a device mesh.
 
-TPU-native replacement for the reference's FFTW-MPI slab FFT
+Replacement for the reference's FFTW-MPI slab FFT
 (MatCreateFFT(PETSC_COMM_WORLD, …, MATFFTW), TransportEquationFFT_...cxx:100)
 including the packed-real-format cross-rank machinery it needed
 (VecPointwiseDivideForRealFFT, FftLinearSolver_3D.c:27-77) — all of which

@@ -1,7 +1,8 @@
-"""Device-mesh helpers: the TPU-native replacement for the reference's MPI
-communicator world (PETSC_COMM_WORLD). One logical axis is enough for the
-row-partitioned / slab-decomposed layouts this framework uses (SURVEY.md §2.6);
-collectives ride ICI within a host and DCN across hosts automatically."""
+"""Device-mesh helpers: the replacement for the reference's MPI communicator
+world (PETSC_COMM_WORLD). One logical axis is enough for the row-partitioned /
+slab-decomposed layouts this framework uses (SURVEY.md §2.6); the pencil
+solver takes a plain 2D mesh. The cards of one host reach each other at the
+same rate (NVLink, all to all), so a mesh follows the algorithm alone."""
 
 from __future__ import annotations
 
@@ -20,9 +21,8 @@ def device_mesh(n_devices: int | None = None, axis: str = "shard") -> Mesh:
 
 
 def device_mesh_2d(shape: tuple[int, int], axes: tuple[str, str] = ("z", "y")) -> Mesh:
-    """2D device mesh for pencil decompositions. On real slices, prefer
-    shapes matching the physical ICI torus so both all_to_all groups ride
-    nearest-neighbor links."""
+    """2D device mesh (p, q) for pencil decompositions, over the first p·q
+    devices."""
     p, q = shape
     devs = jax.devices()
     if p * q > len(devs):

@@ -1,6 +1,6 @@
 """Row-partitioned distributed SpMV over a device mesh.
 
-TPU-native replacement for PETSc's MPI row-block Mat/Vec layout (MatCreateAIJ
+Replacement for PETSc's MPI row-block Mat/Vec layout (MatCreateAIJ
 with PETSC_DECIDE + internal VecScatter halo exchange, used in every mpi
 driver, e.g. WaveSystem_..._impl_mpi.cxx:63-85).
 

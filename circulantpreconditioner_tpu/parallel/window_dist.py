@@ -3,7 +3,7 @@ unstructured MatMult for the tetra fixture families.
 
 Single-device story: ops/window_spmv.WindowedBlockOperator re-lays an
 RCM-ordered unstructured operator as per-cluster dense windows over exact
-source-unit unions (~55× the element-gather ELL on TPU). This module shards
+source-unit unions. This module shards
 it the way HaloELLMatrix shards the assembled operator (SURVEY §2.6: PETSc
 row-block layout + VecScatter ghost updates):
 

@@ -1,6 +1,3 @@
-from circulantpreconditioner_tpu.utils.tpu_compat import (  # noqa: F401
-    tile_scalar,
-    fetch_scalar,
-    retry_transient,
+from circulantpreconditioner_tpu.utils.compile_cache import (  # noqa: F401
     enable_compile_cache,
 )

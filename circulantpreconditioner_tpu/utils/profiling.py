@@ -1,5 +1,5 @@
-"""Profiling & observability — the reference's PetscTime/-log_view analog,
-TPU-native (SURVEY.md §5).
+"""Profiling & observability — the reference's PetscTime/-log_view analog
+(SURVEY.md §5).
 
 - `timed`: wall-clock context manager with block_until_ready semantics.
 - `trace`: jax.profiler trace context (view in TensorBoard / Perfetto).

@@ -1,4 +1,4 @@
-"""MatmulCirculantSolver (MXU DFT path) vs the FFT path and dense oracles."""
+"""MatmulCirculantSolver (DFT-by-matmul path) vs the FFT path and dense oracles."""
 
 import numpy as np
 import pytest
@@ -75,23 +75,3 @@ def test_wave_block_matmul_stepper_matches_fft_stepper():
     U_fft, _ = model.block_fft_stepper(method="fft")(U0)
     U_mm, _ = model.block_fft_stepper(method="matmul")(U0)
     np.testing.assert_allclose(np.asarray(U_mm), np.asarray(U_fft), rtol=1e-9, atol=1e-4)
-
-
-def test_matmul_solver_kernel_path_matches_einsum():
-    """use_kernel=True (Pallas complex_matmul on the y/z stages; falls back
-    to plain dots off-TPU, still exercising the 2D-collapse wrapper) must
-    match the einsum formulation."""
-    import numpy as np
-
-    from circulantpreconditioner_tpu.ops.dft_matmul import MatmulCirculantSolver
-
-    shape = (4, 8, 6)
-    lams = (0.3, -0.2, 1.1)
-    a = MatmulCirculantSolver.create(shape, lams, jnp.float64, precision="highest")
-    b = MatmulCirculantSolver.create(shape, lams, jnp.float64, precision="highest",
-                                     use_kernel=True)
-    rng = np.random.default_rng(0)
-    v = jnp.asarray(rng.random(shape))
-    xa = np.asarray(a.solve(v))
-    xb = np.asarray(b.solve(v))
-    np.testing.assert_allclose(xb, xa, rtol=1e-12, atol=1e-12)

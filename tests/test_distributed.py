@@ -352,7 +352,7 @@ def test_distributed_block_circulant_pc_matches_single_device():
                                        precision="highest")
     assert pc_d.n_xyz == (8, 8, 8)
     pc_l = BlockCirculantProjectionPC(km, model.dt, model.c0, dtype=jnp.float64,
-                                      use_matmul_dft=False)
+                                      method="fft")
     rng = np.random.default_rng(9)
     r = rng.random(D.shape[0])
     z_ref = np.asarray(pc_l(jnp.asarray(r)))
@@ -397,7 +397,7 @@ def test_sharded_gmres_circulant2l_matches_single_device():
     res_d = sol_d(bb, bb)
 
     coarse_l = BlockCirculantProjectionPC(km, model.dt, model.c0,
-                                          dtype=jnp.float64, use_matmul_dft=False)
+                                          dtype=jnp.float64, method="fft")
     M_l = pcs.additive(coarse_l.apply, pcs.pbjacobi(D, shift=1.0))
     sol_l = make_gmres(lambda x: x + A.matvec(x), M_l, rtol=1e-8, atol=1e-10,
                        maxiter=500, side="right")
@@ -457,7 +457,7 @@ def test_distributed_pc_compiled_hlo_uses_all_to_all_not_allgather():
     """Lock in the PC apply's communication pattern: personalized
     all_to_all exchanges (+ the slab solver's y<->z transpose pair), NO
     all-gather — a silent regression to vector replication would otherwise
-    be invisible (VERDICT r2 weak #2; VecScatter parity, SURVEY 2.6)."""
+    be invisible (VecScatter parity, SURVEY 2.6)."""
     from circulantpreconditioner_tpu.mesh.unstructured import kershaw_mesh
     from circulantpreconditioner_tpu.parallel import HaloELLMatrix
     from circulantpreconditioner_tpu.parallel.pc_dist import DistributedBlockCirculantPC

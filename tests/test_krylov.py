@@ -378,24 +378,3 @@ def test_ilu0_scan_schedule_matches_unrolled():
     np.testing.assert_allclose(z_s, z_u, rtol=1e-12, atol=1e-12 * scale)
     # and it actually inverts LU: A z ~ r up to ILU(0) fill error pattern
     assert np.isfinite(z_s).all()
-
-
-def test_lane_and_flat_layouts_agree():
-    """The lane-tiled Krylov basis (layout='lane': V folded onto the 128-lane
-    axis, including the n % 128 != 0 padding path) runs the identical
-    arithmetic to the flat basis — same iteration count, same solution."""
-    n = 20000  # >= the auto threshold, and NOT a multiple of 128
-    rng = np.random.default_rng(5)
-    A = sp.diags([np.full(n - 1, -0.3), np.full(n, 2.0), np.full(n - 1, -0.4)],
-                 [-1, 0, 1]).tocsr()
-    Aj = CSRMatrix.from_scipy(A, dtype=jnp.float64)
-    b = jnp.asarray(rng.standard_normal(n))
-    kw = dict(restart=20, rtol=1e-8, atol=1e-10, maxiter=400)
-    res_f = make_gmres(Aj.matvec_partial(), layout="flat", **kw)(b, None)
-    res_l = make_gmres(Aj.matvec_partial(), layout="lane", **kw)(b, None)
-    assert bool(res_f.converged) and bool(res_l.converged)
-    assert int(res_f.iters) == int(res_l.iters)
-    np.testing.assert_allclose(np.asarray(res_l.x), np.asarray(res_f.x),
-                               rtol=1e-10, atol=1e-10)
-    bn = np.linalg.norm(np.asarray(b))
-    assert np.linalg.norm(A @ np.asarray(res_l.x) - np.asarray(b)) < 1e-7 * bn

@@ -1,56 +1,34 @@
-"""Pallas kernel tests (interpret mode on CPU; compiled path exercised on TPU)."""
+"""Pallas kernel tests (interpret mode on CPU; the compiled Triton path runs
+on the GPU in chip_smoke.py's stencil check)."""
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
-from circulantpreconditioner_tpu.ops.pallas_kernels import complex_matmul
+from circulantpreconditioner_tpu.mesh.unstructured import kershaw_mesh
+from circulantpreconditioner_tpu.models import WaveSystem
+from circulantpreconditioner_tpu.ops.pallas_stencil import make_plane_stencil_matvec
+from circulantpreconditioner_tpu.ops.stencil import (
+    VaryingStencilOperator,
+    WaveNormalStencilOperator,
+)
 
 
-def test_complex_matmul_interpret():
-    rng = np.random.default_rng(0)
-    M = K = N = 256
-    ar, ai = rng.normal(size=(M, K)).astype(np.float32), rng.normal(size=(M, K)).astype(np.float32)
-    br, bi = rng.normal(size=(K, N)).astype(np.float32), rng.normal(size=(K, N)).astype(np.float32)
-    o_re, o_im = complex_matmul(jnp.asarray(ar), jnp.asarray(ai), jnp.asarray(br),
-                                jnp.asarray(bi), interpret=True)
-    want = (ar + 1j * ai) @ (br + 1j * bi)
-    np.testing.assert_allclose(np.asarray(o_re), want.real, rtol=2e-4, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(o_im), want.imag, rtol=2e-4, atol=2e-3)
-
-
-def test_complex_matmul_fallback_nontiled():
-    rng = np.random.default_rng(1)
-    ar = rng.normal(size=(100, 100)).astype(np.float32)
-    ai = rng.normal(size=(100, 100)).astype(np.float32)
-    br = rng.normal(size=(100, 50)).astype(np.float32)
-    bi = rng.normal(size=(100, 50)).astype(np.float32)
-    o_re, o_im = complex_matmul(jnp.asarray(ar), jnp.asarray(ai), jnp.asarray(br), jnp.asarray(bi))
-    want = (ar + 1j * ai) @ (br + 1j * bi)
-    np.testing.assert_allclose(np.asarray(o_re), want.real, rtol=2e-4, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(o_im), want.imag, rtol=2e-4, atol=2e-3)
-
-
-def test_plane_stencil_kernel_matches_fm_matvec():
-    """The plane-blocked Pallas stencil kernel (interpret mode off-TPU)
-    reproduces WaveNormalStencilOperator.matvec_fm exactly."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from circulantpreconditioner_tpu.mesh.unstructured import kershaw_mesh
-    from circulantpreconditioner_tpu.models import WaveSystem
-    from circulantpreconditioner_tpu.ops.pallas_stencil import make_plane_stencil_matvec
-    from circulantpreconditioner_tpu.ops.stencil import (
-        VaryingStencilOperator,
-        WaveNormalStencilOperator,
-    )
-
-    # P = ny*nx = 128 (the kernel's lane-tiling contract); nz=5 pads to 8
-    m = kershaw_mesh(((0.0, 1.0),) * 3, (16, 8, 5))
+def _normal_form(n_xyz):
+    m = kershaw_mesh(((0.0, 1.0),) * 3, n_xyz)
     model = WaveSystem(m, cfl=100.0, dtype=jnp.float64)
     V = VaryingStencilOperator.from_bsr(model.divergence, m.topology_shape)
-    Wn = WaveNormalStencilOperator.from_varying(V, model.c0)
+    return m, WaveNormalStencilOperator.from_varying(V, model.c0)
+
+
+@pytest.mark.parametrize("n_xyz", [(16, 8, 8), (16, 8, 5)],
+                         ids=["whole_blocks", "partial_block"])
+def test_plane_stencil_kernel_matches_fm_matvec(n_xyz):
+    """The Triton-route stencil kernel (interpret mode) reproduces
+    WaveNormalStencilOperator.matvec_fm: 1024 cells fill two programs
+    exactly; with 640 the second program's block runs past the grid."""
+    m, Wn = _normal_form(n_xyz)
     mv = make_plane_stencil_matvec(Wn, interpret=True)
     assert mv is not None
     rng = np.random.default_rng(0)
@@ -58,9 +36,25 @@ def test_plane_stencil_kernel_matches_fm_matvec():
     y, y_ref = np.asarray(mv(g)), np.asarray(Wn.matvec_fm(g))
     np.testing.assert_allclose(y, y_ref, rtol=1e-13,
                                atol=1e-13 * np.abs(y_ref).max())
-    # non-tiling plane size falls back cleanly
-    m2 = kershaw_mesh(((0.0, 1.0),) * 3, (5, 4, 6))
-    model2 = WaveSystem(m2, cfl=100.0, dtype=jnp.float64)
-    V2 = VaryingStencilOperator.from_bsr(model2.divergence, m2.topology_shape)
-    Wn2 = WaveNormalStencilOperator.from_varying(V2, model2.c0)
-    assert make_plane_stencil_matvec(Wn2, interpret=True) is None
+    # flat field-major vectors round-trip in their own shape
+    yf = np.asarray(mv(g.reshape(-1)))
+    np.testing.assert_allclose(yf, y.reshape(-1), rtol=0, atol=0)
+
+
+def test_plane_stencil_kernel_2d_and_layout_contract():
+    """A 2D flat operator (m = 3) runs through the same kernel; a grid_last
+    layout is refused."""
+    import dataclasses
+
+    from circulantpreconditioner_tpu.mesh import cartesian_mesh
+
+    m = cartesian_mesh(((0.0, 1.0),) * 2, (6, 5))
+    model = WaveSystem(m, cfl=10.0, dtype=jnp.float64)
+    V = VaryingStencilOperator.from_bsr(model.divergence, (6, 5))
+    Wn = WaveNormalStencilOperator.from_varying(V, model.c0)
+    mv = make_plane_stencil_matvec(Wn, interpret=True)
+    g = jnp.asarray(np.random.default_rng(1).random((3, m.n_cells)))
+    np.testing.assert_allclose(np.asarray(mv(g)), np.asarray(Wn.matvec_fm(g)),
+                               rtol=1e-13, atol=1e-13 * np.abs(np.asarray(Wn.matvec_fm(g))).max())
+    assert make_plane_stencil_matvec(dataclasses.replace(Wn, layout="grid_last"),
+                                     interpret=True) is None

@@ -1,5 +1,4 @@
-"""Axis elision / dense spectral collapse (ops/spectral_collapse.py) and the
-fused VMEM kernel (ops/fused_circulant.py).
+"""Axis elision / dense spectral collapse (ops/spectral_collapse.py).
 
 These are EXACT reformulations of the circulant solve — every test asserts
 agreement with the full multi-axis DFT pipeline (MatmulCirculantSolver) and,
@@ -19,7 +18,6 @@ import jax.numpy as jnp
 
 from circulantpreconditioner_tpu.ops.circulant import CirculantTransportOperator
 from circulantpreconditioner_tpu.ops.dft_matmul import MatmulCirculantSolver
-from circulantpreconditioner_tpu.ops.fused_circulant import FusedCirculantSolver
 from circulantpreconditioner_tpu.ops.spectral_collapse import (
     DenseCirculantSolver,
     IdentitySolver,
@@ -54,7 +52,7 @@ def test_dense_collapse_lower_ranks(shape, lams):
 
 
 def test_dense_collapse_residual_against_operator():
-    """The gate the TPU bench enforces: residual vs the FULL 3D operator."""
+    """The gate bench.py enforces: residual vs the FULL 3D operator."""
     n = 24
     lams = (0.0, 0.0, 5.0)
     op = CirculantTransportOperator.create((n, n, n), lams, jnp.float32)
@@ -110,30 +108,3 @@ def test_solvers_jit_as_pytrees():
     b = _rand(shape, 5)
     np.testing.assert_allclose(np.asarray(run(s1, b)), np.asarray(s1.solve(b)), atol=1e-6)
     np.testing.assert_allclose(np.asarray(run(s2, b)), np.asarray(s2.solve(b)), atol=1e-6)
-
-
-@pytest.mark.parametrize("precision,atol", [("highest", 1e-5), ("high", 2e-4),
-                                            ("default", 5e-2)])
-def test_fused_kernel_matches_staged(precision, atol):
-    """Interpret-mode check of the fused VMEM kernel, all precision tiers,
-    on a shape whose spectral dims need padding (odd sizes)."""
-    shape = (6, 5, 8)
-    lams = (0.3, 0.2, 0.9)
-    ref = MatmulCirculantSolver.create(shape, lams, jnp.float32, precision="highest")
-    fus = FusedCirculantSolver.create(shape, lams, jnp.float32, precision=precision,
-                                      interpret=True)
-    assert isinstance(fus, FusedCirculantSolver)
-    b = _rand(shape, 6)
-    xr = np.asarray(ref.solve(b))
-    xf = np.asarray(fus.solve(b))
-    scale = np.abs(xr).max()
-    np.testing.assert_allclose(xf, xr, rtol=0, atol=atol * scale)
-    # flat input round-trips
-    np.testing.assert_allclose(np.asarray(fus.solve(b.reshape(-1))), xf.reshape(-1),
-                               rtol=0, atol=1e-7)
-
-
-def test_fused_kernel_fallback_ranks():
-    """Non-3D shapes fall back to the staged solver transparently."""
-    s = FusedCirculantSolver.create((16,), (2.0,), jnp.float32, interpret=True)
-    assert isinstance(s, MatmulCirculantSolver)
